@@ -1,7 +1,7 @@
-"""starch3-tpu: a TPU-native Starch genomic-interval codec.
+"""starch3-tpu: a Starch genomic-interval codec on JAX accelerators.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
-reference ``starch3`` C++ scaffold (see /root/reference): it compresses
+A brand-new JAX/XLA implementation of the capabilities of the
+reference ``starch3`` C++ scaffold (SURVEY.md): it compresses
 sorted BED interval data into a Starch archive (magic bytes, independent
 per-chromosome bzip2 streams, JSON metadata index, footer) and decompresses
 it back, bit-exactly.
@@ -17,7 +17,7 @@ Reference behavior being reimplemented (not ported):
                           but never calls it; the intended per-chromosome
                           index is implemented here for real.
 
-Architecture (TPU-first, not a translation):
+Architecture (device-first, not a translation):
   - ``bed``:       host-side vectorized BED tokenizer/writer (NumPy), replacing
                    the reference's char-at-a-time state machine
                    (starch3api.hpp:220-297).
@@ -26,7 +26,7 @@ Architecture (TPU-first, not a translation):
                    ``update_transformation_state`` loop.
   - ``codec``:     from-scratch bzip2-compatible encoder/decoder. NumPy oracle
                    implementation validated bit-exactly against libbz2, plus
-                   JAX/Pallas kernels for the hot stages (BWT sort, MTF scan,
+                   JAX kernels for the hot stages (BWT sort, MTF scan,
                    group-cost matmuls).
   - ``parallel``:  jax.sharding.Mesh / pjit batch-of-blocks pipeline and
                    deterministic chromosome-order archive assembly.

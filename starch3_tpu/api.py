@@ -399,7 +399,7 @@ def compress_bed_bytes(
         # chromosome into the global device queue the moment its raw
         # span completes, so device batches and stealer cores are
         # already encoding while the parser is still tokenizing — the
-        # TPU rebuild of the reference's producer/consumer pipeline
+        # device rebuild of the reference's producer/consumer pipeline
         # (SURVEY.md §2 C8-C12) at chunk granularity
         from starch3_tpu.parallel.pipeline import encode_streams_feed
 

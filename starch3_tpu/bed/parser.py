@@ -7,7 +7,7 @@ remainder on tab delimiters, newline-terminated) and its per-field sscanf
 find delimiters, gather-based field extraction, and positional-notation
 integer parsing — no Python-level per-line loop.
 
-Output is the columnar form the TPU transform consumes: per-chromosome
+Output is the columnar form the device transform consumes: per-chromosome
 groups of (start:int64, stop:int64) plus a remainder byte-blob with
 per-record offsets (variable-length text stays host-side; devices only
 see fixed-width integer arrays, SURVEY.md §7 step 1).

@@ -9,9 +9,10 @@ bzlib.h:66-67) and initializes it with blockSize100k=9, workFactor=30
   1. ``encoder`` / ``decoder``: a NumPy implementation of the full bzip2
      stream format, validated bit-exactly against libbz2 (Python stdlib
      ``bz2``) in tests/test_bitexact.py.  This is the correctness oracle.
-  2. ``starch3_tpu.ops``: JAX/Pallas kernels for the hot stages — BWT
-     rotation sort (prefix doubling over XLA sort), MTF (chunked scan),
-     Huffman group costing (MXU matmuls) — all checked stage-by-stage
+  2. ``starch3_tpu.ops``: JAX kernels for the hot stages — BWT
+     rotation sort (one-sort packed prefixes, or prefix doubling over
+     XLA sort), MTF (parallel cummax), Huffman group costing (integer
+     matmuls) — all checked stage-by-stage
      against tier 1.
   3. ``starch3_tpu.runtime``: C++ host runtime for the serial residue
      (bitstream packing, stream assembly), mirroring the reference's

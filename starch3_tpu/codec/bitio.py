@@ -4,7 +4,7 @@ bzip2 writes all fields most-significant-bit first and pads the final
 partial byte with zero bits.  The writer below buffers into a Python int
 register; the vectorized bulk path (pack_bits) packs an array of
 (value, nbits) pairs via cumulative offsets, which is the same two-pass
-formulation the TPU bit-pack kernel uses.
+formulation the device bit-pack kernel uses.
 """
 
 from __future__ import annotations
@@ -91,8 +91,8 @@ def pack_bits(
 ) -> tuple[bytes, int, int]:
     """Pack arrays of MSB-first bit fields into bytes (vectorized).
 
-    Word-based two-pass algorithm (the same formulation the TPU bit-pack
-    kernel uses): cumulative bit offsets place each field; a field lands in
+    Word-based two-pass algorithm (the same formulation the device
+    bit-pack kernel uses): cumulative bit offsets place each field; a field lands in
     at most two 64-bit big-endian words, contributed with two scatter-adds
     (fields never overlap, so add == or).
 

@@ -11,7 +11,7 @@ same last column; ``origPtr`` follows libbz2's convention of the *first*
 sorted index pointing at rotation 0).
 
 Oracle algorithm: prefix doubling over cyclic shifts with dense reranking —
-the same formulation the TPU path uses (starch3_tpu/ops/bwt_jax.py), where
+the same formulation the device path uses (starch3_tpu/ops/bwt_jax.py), where
 each doubling round is an XLA sort over (rank, rank-at-offset-k) keys.
 """
 

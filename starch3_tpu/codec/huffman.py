@@ -19,7 +19,8 @@ Every tie-break above is observable in the output bits, so this module
 replicates the exact discipline (validated bit-for-bit against libbz2 in
 tests/test_bitexact.py).  The group-costing inner product is expressed as a
 (groups x alphabet) histogram times (alphabet x tables) length matrix —
-which is how the TPU path runs it on the MXU (starch3_tpu/ops/huff_jax.py).
+which is how the device path runs it, as an integer matmul
+(starch3_tpu/ops/huff_jax.py).
 """
 
 from __future__ import annotations
@@ -219,7 +220,7 @@ def build_plan(symbols: np.ndarray, freq: np.ndarray, alpha_size: int) -> Huffma
 
     selectors = np.empty(n_sel, dtype=np.int64)
     for _ in range(N_ITERS):
-        # cost[g, t] = sum_s hist[g, s] * lengths[t, s]   (MXU-shaped)
+        # cost[g, t] = sum_s hist[g, s] * lengths[t, s]   (a matmul)
         cost = hist @ lengths.T
         selectors = np.argmin(cost, axis=1)  # first minimum wins, as libbz2
         # accumulate each table's winning-group frequencies

@@ -9,8 +9,8 @@ and appends an end-of-block symbol:
     zero run z: digits of (z+1) in binary, MSB dropped, emitted LSB-first,
                 0-digit -> RUNA, 1-digit -> RUNB
 
-MTF is reformulated for vectorization (same formulation the TPU kernel in
-starch3_tpu/ops/mtf_jax.py uses): the MTF rank of symbol s at position i
+MTF is reformulated for vectorization (same formulation the device kernel
+in starch3_tpu/ops/mtf_jax.py uses): the MTF rank of symbol s at position i
 equals the number of symbols whose most recent occurrence is later than
 s's, with never-seen symbols ordered by initial alphabet position:
 
@@ -20,7 +20,8 @@ s's, with never-seen symbols ordered by initial alphabet position:
 
 The last-occurrence table is computed chunk-by-chunk: a cumulative max over
 a (chunk, alphabet) position matrix inside each chunk, with a (alphabet,)
-carry across chunks — a scan-of-cummax, which maps directly onto the VPU.
+carry across chunks — a scan-of-cummax (the device version takes the
+carry across tiles as a parallel scan too).
 """
 
 from __future__ import annotations

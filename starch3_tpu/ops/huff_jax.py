@@ -1,10 +1,12 @@
-"""Huffman refinement on device: histogram + group costing on the MXU.
+"""Huffman refinement on device: histogram + group costing as matmuls.
 
 The per-iteration work of bzip2's table refinement (codec/huffman.py) is
 dominated by group costing: cost[g, t] = sum_s hist[g, s] * len[t, s].
-That is a (G x A) @ (A x T) matmul — MXU work — plus an argmin and a
-selector-grouped frequency reduction, also expressed as a matmul
-(onehot(selector).T @ hist).  The code-length construction itself (a
+That is a (G x A) @ (A x T) integer matmul — XLA hands it to the GPU's
+matrix path; all operands are exact int32, so no reduced-precision
+float mode can change a result — plus an argmin and a selector-grouped
+frequency reduction, also expressed as a matmul (onehot(selector).T @
+hist).  The code-length construction itself (a
 258-node heap) stays on the host: it is O(alphabet log alphabet) per
 table and bit-exactness requires bzip2's precise heap discipline.
 
@@ -28,8 +30,8 @@ def group_histograms(symbols: jax.Array, n_mtf: jax.Array, g_max: int) -> jax.Ar
     padded with ALPHA_MAX-1... padded entries masked by n_mtf."""
     idx = jnp.arange(symbols.size, dtype=jnp.int32)
     valid = idx < n_mtf
-    # one-hot accumulate per group: reshape to (G, 50) then sum one-hots;
-    # expressed as an integer matmul on the MXU via segment one-hots
+    # one-hot accumulate per group: reshape to (G, 50) then sum one-hots
+    # (segment one-hots, an integer reduction)
     sym_g = symbols.reshape(g_max, GROUP_SIZE)
     valid_g = valid.reshape(g_max, GROUP_SIZE)
     onehot = jax.nn.one_hot(sym_g, ALPHA_MAX, dtype=jnp.int32) * valid_g[..., None]

@@ -3,7 +3,7 @@
 The reference's decoder (bundled bzip2's decompress.c) and this
 framework's host decoder (runtime.cpp dec_block) invert the BWT with an
 n-step pointer chase over the LF mapping — inherently sequential.  The
-TPU formulation replaces the walk with parallel primitives:
+device formulation replaces the walk with parallel primitives:
 
   1. LF mapping by one stable sort: sorting (last, idx) yields the
      permutation sigma with sigma[r] = row of the r-th smallest symbol

@@ -3,7 +3,7 @@
 Host behavioral spec: codec/mtf.mtf_rle2_decode (the MTF-list walk of the
 reference's intended decoder; the reference bundles this logic inside
 bzip2's decompress.c).  The sequential list walk is re-expressed for the
-TPU around one observation: the step "emit list[r], move it to front"
+device around one observation: the step "emit list[r], move it to front"
 changes the list by a *position-space* permutation p_r that depends only
 on the rank r, never on the list contents:
 

@@ -10,9 +10,8 @@ Behavioral spec + host oracle: codec/mtf.py mtf_rle2_from_ranks — zero
 runs become bijective-base-2 RUNA/RUNB digits (z+1's binary digits, MSB
 dropped, LSB-first), rank j -> symbol j+1, EOB = n_in_use+1 appended.
 
-Formulation (v2, scatter-minimal — the v1 kernel's 21 digit-plane
-scatters cost ~140 ms per 900 kB block on TPU, where a scatter pass is
-~3x a sort pass; see benchmarks/profile_prims.py):
+Formulation (scatter-minimal: one scatter per digit plane would cost a
+random-access pass each):
 
   every OUTPUT symbol is pinned to a distinct INPUT position.  A run of
   z zeros emits dig = bitlen(z+1)-1 <= z digits, so digit r of a run
@@ -72,14 +71,14 @@ def rle2_from_ranks_padded(
     run_start = jax.lax.cummax(jnp.where(nz, idx, _NEG1))
     # first nonzero at or after i; n when none (the tail run ends at the
     # virtual EOB chunk).  Reverse-scan as flip+cummin+flip: flips are
-    # contiguous moves, far cheaper than gathers on TPU.
+    # contiguous moves, cheaper than gathers.
     next_nz = jnp.flip(jax.lax.cummin(jnp.flip(jnp.where(nz, idx, n))))
 
     r = idx - run_start - 1  # zero's index within its run
     z_total = next_nz - run_start - 1  # the run's full zero count
     mval = z_total + 1
-    # exact bit length via count-leading-zeros (float log2 is inexact at
-    # powers of two on TPU); dig = bitlen(mval) - 1
+    # exact bit length via count-leading-zeros (float32 log2 can round
+    # below an exact power of two); dig = bitlen(mval) - 1
     dig = 31 - jax.lax.clz(mval)
 
     digit = (mval >> jnp.maximum(r, 0)) & 1

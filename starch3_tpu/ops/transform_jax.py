@@ -8,9 +8,7 @@ the VPU.  Decimal *lengths* are computed on device (fixed-bound threshold
 sums) so the host only does final byte scatter; see transform/delta.py for
 the host text assembly these feed.
 
-DESIGN DECISION (round-2, settling round-1's "wire it or delete the
-pretense"): the PRODUCTION encode transform stays on the host, by
-measurement.  The transform is dominated by byte-granular work —
+DESIGN DECISION: the PRODUCTION encode transform stays on the host.  The transform is dominated by byte-granular work —
 tokenizing "chr1\\t123\\t456" lines and emitting decimal text — which the
 fused native parser does at ~190 MB/s on one core; the only
 device-suited part (the integer subtractions) is a negligible slice.

@@ -2,13 +2,13 @@
 
 The reference's only parallelism is 4 pthreads serialized on one mutex
 (reference src/starch3.cpp:36-54, starch3api.hpp:67 — effective
-concurrency ~1).  The TPU replacement is data parallelism over
-independent 900 kB blocks: a 1-D ``jax.sharding.Mesh`` over all chips,
-block batches sharded on the leading axis, XLA compiling one program that
-every chip runs on its shard (SPMD).  No collectives are needed for
-encode itself — blocks are independent; ordered offset/metadata assembly
-is a host-side gather (parallel/assemble.py), the analogue of "NCCL"
-being ICI/DCN under XLA's hood.
+concurrency ~1).  The replacement is data parallelism over independent
+900 kB blocks: a 1-D ``jax.sharding.Mesh`` over all devices, block
+batches sharded on the leading axis, XLA compiling one program that every
+device runs on its shard (SPMD).  No collectives are needed for encode
+itself — blocks are independent; ordered offset/metadata assembly is a
+host-side gather (parallel/assemble.py).  On GPUs of one host the mesh
+is 1-D because the cards are joined all to all.
 """
 
 from __future__ import annotations

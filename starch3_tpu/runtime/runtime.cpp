@@ -3,7 +3,7 @@
 // The reference keeps its codec layer in native code (bundled patched
 // bzip2 1.0.6 + the C++ pipeline, reference makefile:32-43); this module
 // is the rebuild's native tier for the host-bound serial residue of the
-// block codec — the stages that are not worth a TPU round-trip:
+// block codec — the stages that are not worth a device round-trip:
 //
 //   - bzip2 Huffman code-length construction (weight-packed heap with the
 //     format's exact tie-breaking; see starch3_tpu/codec/huffman.py for
@@ -1623,7 +1623,7 @@ int64_t s3_bz2_decode_block(const uint8_t* in, int64_t in_len,
 
 // Parse one block down to its Huffman-decoded RLE2 symbol stream WITHOUT
 // inverting RLE2/MTF/BWT — the host-sequential half of device-pipeline
-// decode (the inverses run batched on the TPU; behavioral spec:
+// decode (the inverses run batched on the device; behavioral spec:
 // starch3_tpu/codec/decoder.py read_block_symbols).  ``bit_offset``
 // addresses the block's 48-bit magic inside the whole stream.  Writes
 // the symbols (EOB excluded) to syms_out, the 256-entry used-byte map
@@ -2453,8 +2453,7 @@ int32_t s3_count_distinct(const uint8_t* p, int64_t n) {
 // `acc`; returns the new accumulator (src's last byte, masked).  One
 // 64-bit-word pass replaces the assembler's multi-pass NumPy shift
 // (codec/bitio.append_writer) — fragment concatenation was the
-// measured ~3 GB/s serial assembly ceiling (docs/PERF.md
-// "Orchestration ceiling"; reference behavior: sequential bsW writes
+// serial assembly ceiling (reference behavior: sequential bsW writes
 // in the bundled bzip2's bzlib.c, which never needed a splice because
 // it never parallelized block production).
 int64_t s3_append_shifted(const uint8_t* src, int64_t n, int32_t nbits,

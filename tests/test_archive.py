@@ -292,7 +292,7 @@ def test_no_trailing_newline_streaming(tmp_path):
 class TestStreamingJaxQueue:
     def test_use_jax_streams_through_device_queue(self, tmp_path, rng):
         """compress_bed_file(use_jax=True) must NOT fall back to a
-        whole-file read (round-1 VERDICT missing #5): chromosomes flush
+        whole-file read: chromosomes flush
         through the shared device queue in bounded windows, and the
         archive is byte-identical to the bytes API either way."""
         from tests.conftest import skip_if_asan
@@ -325,8 +325,7 @@ class TestStreamingJaxQueue:
 @pytest.mark.slow
 class TestGigabyteScale:
     """BASELINE configs 4-5 regime: a >= 1 GB corpus through the
-    streaming encode/decode paths with bounded memory (round-1 VERDICT
-    missing #5).  Both the generator AND the encode/decode run in
+    streaming encode/decode paths with bounded memory.  Both the generator AND the encode/decode run in
     SUBPROCESSES so peak-RSS measures only the product paths — immune
     to whatever earlier tests inflated this process's ru_maxrss to."""
 
@@ -436,7 +435,7 @@ print(json.dumps({
         # numpy/jax baseline (~170 MB) — a 10 GB corpus peaks the same
         assert peak < 800, f"peak RSS {peak:.0f} MB — streaming window leaked"
 
-        # stdin leg (round-2 VERDICT missing #2): the SAME corpus through
+        # stdin leg: the SAME corpus through
         # a real pipe must stream with the same bounded memory and
         # byte-identical archive (reference behavior: the producer is
         # O(1)-memory on stdin too, starch3api.hpp:158-199)

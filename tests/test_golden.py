@@ -5,7 +5,7 @@ on-disk contract (format/SPEC.md) — transform text, bzip2/gzip payload,
 metadata serialization, footer — trips a byte comparison.  Intentional
 format changes must bump FORMAT_VERSION and rerun tests/make_golden.py.
 
-Corpus (round-1 VERDICT weak #7):
+Corpus:
   golden.starch             bzip2, 4 records, note
   golden_gzip.starch        gzip backend
   golden_multiblock.starch  3+ bzip2 blocks in one stream (level 1)

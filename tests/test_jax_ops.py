@@ -11,7 +11,7 @@ import pytest
 from starch3_tpu.codec.bwt import bwt_encode
 from starch3_tpu.codec.mtf import mtf_ranks, symbol_map
 from starch3_tpu.ops.bwt_jax import bwt_encode_jax
-from starch3_tpu.ops.mtf_jax import mtf_ranks_jax
+from starch3_tpu.ops.mtf_jax import WIDTHS, mtf_ranks as mtf_ranks_device
 
 from tests.conftest import make_bed_text
 
@@ -112,57 +112,87 @@ class TestBwtFast:
         assert outs[0] == outs[1]
 
 
+def _device_ranks(seqs, width, n_max=None):
+    """Rows of ``seqs`` (lists/arrays of equal or ragged length) through
+    ops/mtf_jax.mtf_ranks; returns each row's valid prefix."""
+    import jax.numpy as jnp
+
+    lens = np.array([len(r) for r in seqs], np.int32)
+    n_max = n_max or int(lens.max())
+    pad = np.zeros((len(seqs), n_max), np.int32)
+    for i, r in enumerate(seqs):
+        pad[i, : len(r)] = r
+    out = np.asarray(
+        mtf_ranks_device(jnp.asarray(pad), jnp.asarray(lens), n_max, width)
+    )
+    assert not out[np.arange(n_max)[None, :] >= lens[:, None]].any()
+    return [out[i, : lens[i]] for i in range(len(seqs))]
+
+
 class TestMtfJax:
     @pytest.mark.parametrize("n", [1, 100, 4096, 5000])
     def test_matches_oracle(self, rng, n):
         blk = rng.integers(0, 200, n, dtype=np.uint8)
         _, u2s, n_in = symbol_map(blk)
-        seq = u2s[blk]
-        assert mtf_ranks_jax(seq.astype(np.int32), n_in).tolist() == mtf_ranks(
-            seq, n_in
-        ).tolist()
+        seq = u2s[blk].astype(np.int32)
+        got = _device_ranks([seq], 256)[0]
+        assert got.tolist() == mtf_ranks(seq, n_in).tolist()
 
 
-class TestMtfNarrowPallas:
-    """ops/mtf_narrow_pallas.py (interpret mode off-TPU): the bits==4
-    production MTF kernel vs the NumPy oracle, including the cross-tile
-    recency-order carry collapse."""
+class TestMtfRanks:
+    """ops/mtf_jax.mtf_ranks at every alphabet width the device tiers use
+    (16 for bits==4, 32/64 for bits==5/6, 256 for bits==8) vs the NumPy
+    oracle, including the cross-tile recency-order carry."""
 
+    @pytest.mark.parametrize("width", WIDTHS)
     @pytest.mark.parametrize(
         "n,nsym", [(1, 16), (100, 2), (4096, 14), (5000, 16), (12288, 5)]
     )
-    def test_matches_oracle(self, rng, n, nsym):
-        from starch3_tpu.ops.mtf_narrow_pallas import mtf_ranks_narrow_host
-
+    def test_matches_oracle(self, rng, n, nsym, width):
         seq = rng.integers(0, nsym, n).astype(np.int32)
-        assert mtf_ranks_narrow_host(seq).tolist() == mtf_ranks(seq, 16).tolist()
+        got = _device_ranks([seq], width)[0]
+        assert got.tolist() == mtf_ranks(seq, width).tolist()
 
-    def test_rare_symbol_across_tiles(self, rng):
-        """A symbol seen once early then silent across several 4096-
-        position tiles: its carried recency order must stay exact."""
-        from starch3_tpu.ops.mtf_narrow_pallas import mtf_ranks_narrow_host
-
+    @pytest.mark.parametrize("width", WIDTHS)
+    def test_rare_symbol_across_tiles(self, rng, width):
+        """A symbol seen once early then silent across many tiles: its
+        carried recency order must stay exact."""
         seq = rng.integers(0, 3, 20000).astype(np.int32)
-        seq[5] = 15
-        seq[100] = 14
-        seq[19999] = 15  # rank depends on order among long-silent symbols
-        assert mtf_ranks_narrow_host(seq).tolist() == mtf_ranks(seq, 16).tolist()
+        seq[5] = width - 1
+        seq[100] = width - 2
+        seq[19999] = width - 1  # rank depends on order among silent symbols
+        got = _device_ranks([seq], width)[0]
+        assert got.tolist() == mtf_ranks(seq, width).tolist()
 
-    def test_batch_rows_reinitialize(self, rng):
-        """Row 1's ranks must be independent of row 0 (carry re-init)."""
+    def test_batch_rows_independent(self, rng):
+        """Row 1's ranks must not depend on row 0, and ragged lengths
+        zero each row's tail."""
+        a = rng.integers(0, 16, 4096).astype(np.int32)
+        b = rng.integers(0, 16, 3001).astype(np.int32)
+        got = _device_ranks([a, b], 16)
+        assert got[0].tolist() == mtf_ranks(a, 16).tolist()
+        assert got[1].tolist() == mtf_ranks(b, 16).tolist()
+        alone = _device_ranks([b], 16, n_max=4096)[0]
+        assert alone.tolist() == got[1].tolist()
+
+    @pytest.mark.parametrize("n_max", [16_384, 131_072, 458_752, 901_120])
+    def test_every_geometry_bucket(self, rng, n_max):
+        """Each padded geometry the pipeline compiles (_N_MAX_BUCKETS),
+        with a row shorter than the bucket."""
+        from starch3_tpu.parallel.pipeline import _N_MAX_BUCKETS
+
+        assert n_max in _N_MAX_BUCKETS
+        seq = rng.integers(0, 14, n_max - 777).astype(np.int32)
+        got = _device_ranks([seq], 16, n_max=n_max)[0]
+        assert got.tolist() == mtf_ranks(seq, 16).tolist()
+
+    def test_rejects_unknown_width(self):
         import jax.numpy as jnp
 
-        from starch3_tpu.ops.mtf_narrow_pallas import mtf_ranks_narrow_batch
-
-        n_max = 4096
-        a = rng.integers(0, 16, n_max).astype(np.int32)
-        b = rng.integers(0, 16, n_max).astype(np.int32)
-        import jax
-
-        interp = jax.default_backend() != "tpu"
-        both = np.stack([a, b])
-        out = np.asarray(mtf_ranks_narrow_batch(jnp.asarray(both), n_max, interp))
-        assert out[1].tolist() == mtf_ranks(b, 16).tolist()
+        with pytest.raises(ValueError):
+            mtf_ranks_device(
+                jnp.zeros((1, 8), jnp.int32), jnp.ones(1, jnp.int32), 8, 128
+            )
 
 
 class TestBwtFast3:
@@ -329,28 +359,6 @@ class TestBwtFastMid:
             )
             outs.append((np.asarray(last)[:700].tolist(), int(ptr), int(ties)))
         assert outs[0] == outs[1]
-
-
-class TestMtfNarrowWidths:
-    """The width-32/64 variants of the narrow Pallas MTF kernel (the
-    bits==5/6 mid tier) vs the NumPy oracle."""
-
-    @pytest.mark.parametrize("width", [32, 64])
-    def test_matches_oracle(self, rng, width):
-        import jax
-        import jax.numpy as jnp
-
-        from starch3_tpu.ops.mtf_narrow_pallas import mtf_ranks_narrow_batch
-
-        n_max = 8192
-        seqs = rng.integers(0, width, (2, n_max)).astype(np.int32)
-        seqs[0, 7] = width - 1  # rare symbol: recency carry across tiles
-        interp = jax.default_backend() != "tpu"
-        out = np.asarray(
-            mtf_ranks_narrow_batch(jnp.asarray(seqs), n_max, interp, width)
-        )
-        for i in range(2):
-            assert out[i].tolist() == mtf_ranks(seqs[i], width).tolist()
 
 
 class TestTransformJax:
@@ -520,9 +528,9 @@ class TestBwtInitBytes:
 
 
 def test_device_rle2_power_of_two_runs():
-    """Zero-runs whose z+1 is a power of two trip float log2 (TPU
-    float32 log2(32768)=14.999999); the kernel must use exact integer
-    bit lengths."""
+    """Zero-runs whose z+1 is a power of two trip float log2 (float32
+    log2(32768) can round to 14.999999); the kernel must use exact
+    integer bit lengths."""
     import jax.numpy as jnp
 
     from starch3_tpu.codec.mtf import mtf_rle2_from_ranks
